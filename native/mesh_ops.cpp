@@ -2,7 +2,7 @@
 //
 // Reference equivalents: src/asset/mesh_postprocessing.cpp (vertex welding,
 // normal generation) and src/asset/obj.cpp (OBJ parsing) — all native C++ in
-// the reference.  The TPU framework keeps these host-side stages native too:
+// the reference.  This framework keeps these host-side stages native too:
 // importing a multi-million-vertex mesh through Python loops would dominate
 // scene load time.  Exposed through a plain C ABI consumed via ctypes
 // (assets/native.py), with a pure-Python fallback when no compiler exists.
@@ -176,7 +176,7 @@ int64_t obj_parse(const char* text, int64_t length,
 #include <utility>
 
 // ---------------------------------------------------------------------------
-// BVH median-split build (host).  The TPU consumes the result as flat arrays
+// BVH median-split build (host).  The device consumes the result as flat arrays
 // (render/bvh.py); only the tree CONSTRUCTION is host-side and hot — the
 // NumPy recursive argsort builder costs ~3.3 s at 123k triangles, this is
 // the native replacement (reference analogue: D3D12 BLAS builds are native

@@ -8,11 +8,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.assets.fbx import load_fbx, write_fbx_skinned
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.instances import build_instanced
-from d3d12renderer_tpu.render.skinned_instances import (
+from d3d12renderer_jax.assets.fbx import load_fbx, write_fbx_skinned
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.instances import build_instanced
+from d3d12renderer_jax.render.skinned_instances import (
     build_frame_bvh, from_model_asset,
 )
 from tests.test_fbx_skin_anim import CLUSTERS, CPS, JOINTS, ROT_TRACKS, TRIS

@@ -5,10 +5,10 @@ import time
 
 import numpy as np
 
-from d3d12renderer_tpu.assets.cache import (
+from d3d12renderer_jax.assets.cache import (
     FileRegistry, load_image_cached, load_with_cache,
 )
-from d3d12renderer_tpu.assets.loaders import (
+from d3d12renderer_jax.assets.loaders import (
     generate_normals, generate_tangents, load_model, load_obj, load_ply,
     weld_mesh,
 )
@@ -91,7 +91,7 @@ def test_mesh_postprocessing(tmp_path):
     # Welding removes duplicates.
     dup = mesh
     import copy
-    from d3d12renderer_tpu.render.mesh import MeshData, merge
+    from d3d12renderer_jax.render.mesh import MeshData, merge
     two = merge([mesh, mesh])
     welded = weld_mesh(two)
     assert len(welded.positions) == 4
@@ -163,7 +163,7 @@ def test_native_mesh_ops():
     """Native C++ mesh ops compile and agree with the NumPy fallbacks."""
     import numpy as np
 
-    from d3d12renderer_tpu.assets import native
+    from d3d12renderer_jax.assets import native
 
     assert native.native_available(), "g++ build of native/mesh_ops.cpp failed"
 
@@ -194,7 +194,7 @@ def test_native_obj_speed_sanity():
     """The native parser handles a larger synthetic OBJ correctly."""
     import numpy as np
 
-    from d3d12renderer_tpu.assets import native
+    from d3d12renderer_jax.assets import native
 
     rng = np.random.default_rng(1)
     n = 5000
@@ -212,8 +212,8 @@ def test_native_obj_speed_sanity():
 def test_fbx_binary_roundtrip(tmp_path):
     """Write a minimal binary FBX (zlib-compressed arrays) and load it back —
     the reference's debug-dump round-trip pattern (fbx.cpp:18-20)."""
-    from d3d12renderer_tpu.assets.fbx import load_fbx, parse_fbx, write_fbx_geometry
-    from d3d12renderer_tpu.render.mesh import ico_sphere
+    from d3d12renderer_jax.assets.fbx import load_fbx, parse_fbx, write_fbx_geometry
+    from d3d12renderer_jax.render.mesh import ico_sphere
 
     src = ico_sphere(1.0, 1)
     p = str(tmp_path / "mesh.fbx")
@@ -239,7 +239,7 @@ def test_fbx_quad_triangulation(tmp_path):
     """Polygon (quad) faces triangulate like the reference's fan split."""
     import struct as pystruct
 
-    from d3d12renderer_tpu.assets.fbx import (
+    from d3d12renderer_jax.assets.fbx import (
         FBXNode, MAGIC, _write_node, load_fbx,
     )
 
@@ -269,7 +269,7 @@ def test_bc1_texture_codec_roundtrip():
     and the packed payload is ~24x smaller than the float32 mips."""
     import pickle
 
-    from d3d12renderer_tpu.assets import texcompress as tc
+    from d3d12renderer_jax.assets import texcompress as tc
 
     # Solid color: endpoints collapse to the color -> error is pure 565
     # quantization (< 1/62 per channel in sRGB).

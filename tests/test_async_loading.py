@@ -7,7 +7,7 @@ import time
 
 import numpy as np
 
-from d3d12renderer_tpu.assets.async_loader import (
+from d3d12renderer_jax.assets.async_loader import (
     AsyncLoader, LoadState, load_model_async,
 )
 

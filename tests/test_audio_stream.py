@@ -9,9 +9,9 @@ import wave
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.audio.audio import AudioEngine, sine_synth
-from d3d12renderer_tpu.audio.mixdown import mixdown, write_wav
-from d3d12renderer_tpu.audio.stream import (
+from d3d12renderer_jax.audio.audio import AudioEngine, sine_synth
+from d3d12renderer_jax.audio.mixdown import mixdown, write_wav
+from d3d12renderer_jax.audio.stream import (
     StreamingMixer, WavBlockReader, stream_to_wav,
 )
 

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.physics import broadphase, collide
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics import broadphase, collide
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 
 def _random_pile(num_bodies, seed=0, broadphase_mode="sap", neighbors=16):
@@ -179,7 +179,7 @@ def test_compact_active_keeps_all_active_rows():
 
 
 def test_jacobi_matmul_matches_scatter_path():
-    """The one-hot MXU gather/scatter Jacobi must match the .at[] scatter
+    """The one-hot matmul gather/scatter Jacobi must match the .at[] scatter
     path to float rounding over a real settling trajectory."""
     arch, state0 = _random_pile(27, seed=7)
     results = {}
@@ -255,7 +255,7 @@ def test_runtime_gs_bounds_jacobi_divergence():
 
 
 def test_runtime_color_is_conflict_free():
-    from d3d12renderer_tpu.physics import solver
+    from d3d12renderer_jax.physics import solver
 
     rng = np.random.default_rng(0)
     p, nb = 200, 40

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.core import maths as m
-from d3d12renderer_tpu.physics import builder, narrow, step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.core import maths as m
+from d3d12renderer_jax.physics import builder, narrow, step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 
 def _call(p0, p1, r, c, q, h):

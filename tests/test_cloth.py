@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 from functools import partial
 
-from d3d12renderer_tpu.physics import cloth as cl
+from d3d12renderer_jax.physics import cloth as cl
 
 DT = 1.0 / 120.0
 
@@ -90,10 +90,10 @@ def test_cloth_drapes_over_moving_rigid_sphere():
     stays outside it throughout (BASELINE config 3)."""
     import jax
 
-    from d3d12renderer_tpu.physics.builder import SceneBuilder
-    from d3d12renderer_tpu.physics.cloth_coupling import step_cloth_with_bodies
-    from d3d12renderer_tpu.physics.step import physics_step
-    from d3d12renderer_tpu.physics.types import PhysicsSettings
+    from d3d12renderer_jax.physics.builder import SceneBuilder
+    from d3d12renderer_jax.physics.cloth_coupling import step_cloth_with_bodies
+    from d3d12renderer_jax.physics.step import physics_step
+    from d3d12renderer_jax.physics.types import PhysicsSettings
 
     b = SceneBuilder()
     b.add_static_plane((0, 1, 0), -3.0)

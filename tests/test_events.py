@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.physics import events as ev
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.collide import generate_contacts
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics import events as ev
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.collide import generate_contacts
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 DT = 1 / 60
 

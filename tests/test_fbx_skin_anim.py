@@ -9,13 +9,13 @@ reference's debug dumps, src/asset/fbx.cpp:18-20).
 import numpy as np
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.assets.fbx import (
+from d3d12renderer_jax.assets.fbx import (
     load_fbx, parse_fbx_ascii, write_fbx_skinned,
 )
-from d3d12renderer_tpu.animation.animation import (
+from d3d12renderer_jax.animation.animation import (
     forward_kinematics, sample_clip, skinning_transforms,
 )
-from d3d12renderer_tpu.animation.skinning import skin_vertices
+from d3d12renderer_jax.animation.skinning import skin_vertices
 
 CPS = np.array([
     [0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 2.0, 0.0], [1.0, 2.0, 0.0],

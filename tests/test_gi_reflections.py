@@ -10,15 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.gbuffer import render_gbuffer
-from d3d12renderer_tpu.render.light_probe import (
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.gbuffer import render_gbuffer
+from d3d12renderer_jax.render.light_probe import (
     create_probe_grid, update_probes,
 )
-from d3d12renderer_tpu.render.pathtracer import Materials, Scene, default_sky
-from d3d12renderer_tpu.render.pipeline import (
+from d3d12renderer_jax.render.pathtracer import Materials, Scene, default_sky
+from d3d12renderer_jax.render.pipeline import (
     RendererSettings, render_frame, rt_reflections,
 )
 

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.gjk import gjk, gjk_epa_contact, make_shape_ref
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import (
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.gjk import gjk, gjk_epa_contact, make_shape_ref
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import (
     SHAPE_BOX, SHAPE_CAPSULE, SHAPE_CYLINDER, SHAPE_HULL, SHAPE_SPHERE,
     PhysicsSettings,
 )

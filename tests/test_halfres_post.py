@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render import post
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.pathtracer import Materials, Scene, default_sky
-from d3d12renderer_tpu.render.pipeline import (
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render import post
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.pathtracer import Materials, Scene, default_sky
+from d3d12renderer_jax.render.pipeline import (
     RendererSettings, initial_frame_state, render_frame,
 )
 

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.heightmap_collision import (
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.heightmap_collision import (
     build_minmax_mips, vertex_vs_terrain_triangles,
 )
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 
 def test_minmax_mips_structure():
@@ -64,7 +64,7 @@ def test_cliff_contact_found_only_by_triangles():
         b.add_terrain(h, origin=(0.0, 0.0, 0.0), cell_size=1.0)
         return b.finalize(terrain_collision=mode)
 
-    from d3d12renderer_tpu.physics.collide import generate_contacts
+    from d3d12renderer_jax.physics.collide import generate_contacts
 
     arch_b, state = build("bilinear")
     c_b = generate_contacts(arch_b, state)
@@ -88,11 +88,11 @@ def test_ridge_edge_contact_needs_convex_path():
     (GJK per candidate triangle) path must find an upward contact with the
     scalar-predicted depth (reference handles the general collider surface,
     src/physics/heightmap_collision.cpp:509)."""
-    from d3d12renderer_tpu.physics.gjk import ShapeRef, make_shape_ref
-    from d3d12renderer_tpu.physics.heightmap_collision import (
+    from d3d12renderer_jax.physics.gjk import ShapeRef, make_shape_ref
+    from d3d12renderer_jax.physics.heightmap_collision import (
         convex_vs_terrain_triangles,
     )
-    from d3d12renderer_tpu.physics.types import SHAPE_BOX
+    from d3d12renderer_jax.physics.types import SHAPE_BOX
 
     i = np.arange(9, dtype=np.float32)
     h = np.broadcast_to((2.0 - 0.5 * np.abs(i - 4.0))[:, None], (9, 9)).copy()

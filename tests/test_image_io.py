@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.assets.image_io import (
+from d3d12renderer_jax.assets.image_io import (
     load_exr, load_hdr, load_png16, save_exr, save_hdr, save_png16,
 )
 
@@ -68,7 +68,7 @@ def test_png16_roundtrip(tmp_path):
 def test_float_radiance_through_cache(radiance, tmp_path):
     """A real HDR file loads through the derived-data cache preserving float
     radiance (no 8-bit clip), and re-load hits the cache."""
-    from d3d12renderer_tpu.assets.cache import load_image_cached
+    from d3d12renderer_jax.assets.cache import load_image_cached
 
     p = str(tmp_path / "env.hdr")
     save_hdr(p, radiance)
@@ -85,7 +85,7 @@ def test_float_radiance_through_cache(radiance, tmp_path):
 
 def test_exr_through_cache_linear(tmp_path):
     """EXR decode must NOT apply sRGB decode (it is already linear)."""
-    from d3d12renderer_tpu.assets.cache import load_image
+    from d3d12renderer_jax.assets.cache import load_image
 
     img = np.full((8, 8, 3), 0.5, np.float32)
     p = str(tmp_path / "l.exr")
@@ -99,11 +99,11 @@ def test_demo_envmap_hdr_into_ibl(tmp_path):
     SH irradiance: the sun must dominate the irradiance direction."""
     import jax.numpy as jnp
 
-    from d3d12renderer_tpu.assets.cache import load_image_cached
-    from d3d12renderer_tpu.assets.envmap import (
+    from d3d12renderer_jax.assets.cache import load_image_cached
+    from d3d12renderer_jax.assets.envmap import (
         DEFAULT_SUN, ensure_demo_envmap,
     )
-    from d3d12renderer_tpu.render.ibl import (
+    from d3d12renderer_jax.render.ibl import (
         equirect_to_cubemap, eval_irradiance_sh9, irradiance_sh9,
         sample_equirect,
     )

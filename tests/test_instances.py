@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.instances import (
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.instances import (
     build_instanced, render_bodies, retransform,
 )
-from d3d12renderer_tpu.render.pathtracer import Materials, default_sky
+from d3d12renderer_jax.render.pathtracer import Materials, default_sky
 
 
 def test_retransform_moves_instances():
@@ -42,9 +42,9 @@ def test_retransform_moves_instances():
 @pytest.mark.slow
 def test_sim_to_render_on_device():
     """Physics step -> retransform -> path trace without host transfers."""
-    from d3d12renderer_tpu.physics.builder import SceneBuilder
-    from d3d12renderer_tpu.physics.step import physics_step
-    from d3d12renderer_tpu.physics.types import PhysicsSettings
+    from d3d12renderer_jax.physics.builder import SceneBuilder
+    from d3d12renderer_jax.physics.step import physics_step
+    from d3d12renderer_jax.physics.types import PhysicsSettings
 
     b = SceneBuilder()
     b.add_static_plane((0, 1, 0), 0.0)
@@ -91,7 +91,7 @@ def test_sim_to_render_on_device():
 
 
 def test_frustum_culling():
-    from d3d12renderer_tpu.scene.scene_rendering import (
+    from d3d12renderer_jax.scene.scene_rendering import (
         cull_spheres, frustum_planes,
     )
 
@@ -112,9 +112,9 @@ def test_frustum_culling():
 
 
 def test_render_submission_from_scene():
-    from d3d12renderer_tpu.scene import components as C
-    from d3d12renderer_tpu.scene.scene import Scene
-    from d3d12renderer_tpu.scene.scene_rendering import RenderSubmission
+    from d3d12renderer_jax.scene import components as C
+    from d3d12renderer_jax.scene.scene import Scene
+    from d3d12renderer_jax.scene.scene_rendering import RenderSubmission
 
     s = Scene()
     ball = s.create_entity("Ball")

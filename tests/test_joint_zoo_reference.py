@@ -15,9 +15,9 @@ import jax
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 DT = 1.0 / 120.0
 GRAVITY = -9.81

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 SETTINGS = PhysicsSettings()
 DT = 1.0 / 60.0

@@ -9,7 +9,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.learning.loco_env import (
+from d3d12renderer_jax.learning.loco_env import (
     ACTION_SIZE, STATE_SIZE, LocoEnv, make_vec_env,
 )
 

@@ -1,6 +1,6 @@
 """Direct unit tests for the math library (core/maths.py).
 
-The TPU equivalent of the reference's vec/quat/trs core (reference:
+The batched equivalent of the reference's vec/quat/trs core (reference:
 src/core/math.h:1, math.cpp) — everything else in the repo exercises these
 transitively; this file pins them directly against NumPy references.
 """
@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from d3d12renderer_tpu.core import maths as m
+from d3d12renderer_jax.core import maths as m
 
 
 def rot_matrix(axis, angle):

@@ -7,15 +7,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.learning.export import (
+from d3d12renderer_jax.learning.export import (
     export_policy_header, policy_forward_np,
 )
-from d3d12renderer_tpu.learning.networks import ActorCritic
-from d3d12renderer_tpu.render.geometry_gen import (
+from d3d12renderer_jax.learning.networks import ActorCritic
+from d3d12renderer_jax.render.geometry_gen import (
     koch_fractal_3d, koch_snowflake, metaballs_mesh,
 )
-from d3d12renderer_tpu.utils.hot_reload import KernelRegistry
-from d3d12renderer_tpu.utils.undo import UndoStack
+from d3d12renderer_jax.utils.hot_reload import KernelRegistry
+from d3d12renderer_jax.utils.undo import UndoStack
 
 
 def test_kernel_registry_invalidation(tmp_path):
@@ -111,14 +111,36 @@ def test_metaballs_isosurface():
 
 def test_persistent_compilation_cache_enabled():
     """Importing the package enables the persistent XLA compile cache (the
-    pipeline-state-cache analog, dx_pipeline.cpp:412) unless the user
-    configured or disabled it — multi-minute TPU frame compiles pay once."""
+    pipeline-state-cache analog, dx_pipeline.cpp:412) in the checkout's
+    fixed .jax_cache, unless JAX_COMPILATION_CACHE_DIR names one."""
     import os
 
     import jax
 
-    if os.environ.get("D3DTPU_NO_COMPILATION_CACHE") or \
-            os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return  # user-managed; the hook must not override
-    assert jax.config.jax_compilation_cache_dir is not None
-    assert "d3d12renderer_tpu" in jax.config.jax_compilation_cache_dir
+    import d3d12renderer_jax
+
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return  # JAX reads the variable itself; the package sets nothing
+    assert (jax.config.jax_compilation_cache_dir
+            == d3d12renderer_jax.CHECKOUT_CACHE_DIR)
+
+
+@pytest.mark.parametrize("env", [None, "", "/elsewhere/xla"])
+def test_compile_cache_dir_rule(monkeypatch, env):
+    """Set: the package leaves the cache to JAX.  Unset or empty: a fixed
+    directory inside the checkout, the same on every call."""
+    import os
+
+    import d3d12renderer_jax as pkg
+
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+    got = pkg.compile_cache_dir()
+    if env:
+        assert got is None
+    else:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+        assert got == os.path.join(root, ".jax_cache")
+        assert got == pkg.compile_cache_dir()

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.animation.animation import (
+from d3d12renderer_jax.animation.animation import (
     AnimationClip, LocalPose, blend_poses, extract_root_motion,
     forward_kinematics, make_skeleton, sample_clip, skinning_transforms,
 )
-from d3d12renderer_tpu.animation.skinning import skin_vertices
-from d3d12renderer_tpu.particles import systems as psys
-from d3d12renderer_tpu.render.sort import bitonic_sort_kv, self_test
+from d3d12renderer_jax.animation.skinning import skin_vertices
+from d3d12renderer_jax.particles import systems as psys
+from d3d12renderer_jax.render.sort import bitonic_sort_kv, self_test
 
 
 @pytest.mark.slow

@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.lights import make_point_lights
-from d3d12renderer_tpu.render.pathtracer import (
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.lights import make_point_lights
+from d3d12renderer_jax.render.pathtracer import (
     Materials, PathTracerSettings, Scene, Sky, eval_brdf, render,
     trace_sample,
 )

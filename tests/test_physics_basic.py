@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.physics import builder, step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics import builder, step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 
 def jit_stepper(arch, settings, h=None):

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.learning.loco_env import LocoEnv
-from d3d12renderer_tpu.learning.ppo import PPOConfig, make_ppo
+from d3d12renderer_jax.learning.loco_env import LocoEnv
+from d3d12renderer_jax.learning.ppo import PPOConfig, make_ppo
 
 
 @pytest.mark.slow

@@ -4,7 +4,7 @@ shaders/sky/sky_procedural_ps.hlsl; model: Preetham/Shirley/Smits 1999)."""
 import numpy as np
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.render.pathtracer import (
+from d3d12renderer_jax.render.pathtracer import (
     default_sky, preetham_sky, sky_radiance,
 )
 

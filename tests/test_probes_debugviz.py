@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.core.camera_controller import FlyController, OrbitController
-from d3d12renderer_tpu.render.debug_viz import (
+from d3d12renderer_jax.core.camera_controller import FlyController, OrbitController
+from d3d12renderer_jax.render.debug_viz import (
     draw_outlines, object_outlines, rasterize_lines, wire_box, wire_cone,
     wire_sphere,
 )
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.light_probe import (
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.light_probe import (
     create_probe_grid, oct_decode, probe_positions, sample_irradiance,
     update_probes, _oct_encode,
 )
@@ -95,7 +95,7 @@ def test_camera_controllers():
 
 
 def test_episode_monitor_stats():
-    from d3d12renderer_tpu.learning.monitor import (
+    from d3d12renderer_jax.learning.monitor import (
         init_stats, summarize, update_stats,
     )
     stats = init_stats(2)

@@ -12,11 +12,11 @@ import numpy as np
 import jax
 import pytest
 
-from d3d12renderer_tpu.assets.fbx import load_fbx, write_fbx_skinned
-from d3d12renderer_tpu.models import ragdoll as rd
-from d3d12renderer_tpu.physics import step
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.assets.fbx import load_fbx, write_fbx_skinned
+from d3d12renderer_jax.models import ragdoll as rd
+from d3d12renderer_jax.physics import step
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 # Synthetic humanoid rig: local +Y of every joint points along its bone
 # (standard rig convention the reference's limb fit assumes).

@@ -1,9 +1,9 @@
-"""Tile-binned rasterizer (ops/raster_pallas.py) parity vs the ray path.
+"""Tile-binned rasterizer (ops/raster.py) parity vs the ray path.
 
 The rasterizer must produce the same primary visibility as
 render/bvh.closest_hit: same winning triangle per pixel (up to depth ties),
 matching t and barycentrics.  Reference contract: the depth prepass G-buffer
-(src/rendering/depth_prepass.h) whose TPU equivalent is render/gbuffer.py.
+(src/rendering/depth_prepass.h) whose equivalent here is render/gbuffer.py.
 """
 
 import math
@@ -13,10 +13,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from d3d12renderer_tpu.ops import raster_pallas as rp
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.camera import generate_rays, look_at
+from d3d12renderer_jax.ops import raster as rp
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.camera import generate_rays, look_at
 
 
 def _demo_scene():
@@ -32,7 +32,7 @@ def _demo_scene():
 def _parity(scene, eye, target, w, h, fov=60.0, min_hit_frac=0.2):
     cam = look_at(eye, target, v_fov=math.radians(fov), aspect=w / h)
     b = bvh_mod.build_bvh(scene)
-    res_r = rp.closest_hit_raster(b, cam, w, h, interpret=True)
+    res_r = rp.closest_hit_raster(b, cam, w, h)
     o, d = generate_rays(cam, w, h)
     res_ray = bvh_mod.closest_hit(b, o, d)
 
@@ -91,7 +91,7 @@ def test_jitter_matches_jittered_rays():
                   v_fov=math.radians(60), aspect=w / h)
     b = bvh_mod.build_bvh(scene)
     jit = (0.25, 0.75)
-    res_r = rp.closest_hit_raster(b, cam, w, h, jitter=jit, interpret=True)
+    res_r = rp.closest_hit_raster(b, cam, w, h, jitter=jit)
     # Rays through the same jittered sub-pixel positions.
     px = jnp.arange(w, dtype=jnp.float32)
     py = jnp.arange(h, dtype=jnp.float32)
@@ -99,7 +99,7 @@ def test_jitter_matches_jittered_rays():
     ndc_x = (gx + jit[0]) / w * 2.0 - 1.0
     ndc_y = 1.0 - (gy + jit[1]) / h * 2.0
     th = math.tan(cam.v_fov * 0.5)
-    from d3d12renderer_tpu.core import maths as m
+    from d3d12renderer_jax.core import maths as m
     dir_cam = jnp.stack([ndc_x * th * cam.aspect, ndc_y * th,
                          -jnp.ones_like(ndc_x)], -1).reshape(-1, 3)
     d = m.quat_rotate(cam.rotation[None], dir_cam)
@@ -120,7 +120,7 @@ def test_empty_view():
     cam = look_at((0.0, 1.0, -6.0), (0.0, 20.0, -12.0),
                   v_fov=math.radians(60), aspect=w / h)
     b = bvh_mod.build_bvh(scene)
-    res = rp.closest_hit_raster(b, cam, w, h, interpret=True)
+    res = rp.closest_hit_raster(b, cam, w, h)
     assert not bool(np.asarray(res["hit"]).any())
     assert np.all(np.asarray(res["tri"]) == -1)
 
@@ -150,15 +150,15 @@ def test_occlusion_feedback_exact():
     cam2 = look_at((4.0, 2.5, -5.0), (0.0, 1.0, 0.0),
                    v_fov=math.radians(60), aspect=w / h)
     b = bvh_mod.build_bvh(scene)
-    base = rp.closest_hit_raster(b, cam, w, h, interpret=True)
+    base = rp.closest_hit_raster(b, cam, w, h)
     # Static case: feed back this frame's own tile_qmin.
-    again = rp.closest_hit_raster(b, cam, w, h, interpret=True,
+    again = rp.closest_hit_raster(b, cam, w, h,
                                   tile_qmin=base["tile_qmin"])
     np.testing.assert_array_equal(np.asarray(base["tri"]),
                                   np.asarray(again["tri"]))
     # Moving case: feedback computed from a very different view.
-    stale = rp.closest_hit_raster(b, cam2, w, h, interpret=True)
-    moved = rp.closest_hit_raster(b, cam, w, h, interpret=True,
+    stale = rp.closest_hit_raster(b, cam2, w, h)
+    moved = rp.closest_hit_raster(b, cam, w, h,
                                   tile_qmin=stale["tile_qmin"])
     np.testing.assert_array_equal(np.asarray(base["tri"]),
                                   np.asarray(moved["tri"]))
@@ -167,7 +167,7 @@ def test_occlusion_feedback_exact():
                                rtol=1e-6)
     # Adversarial garbage feedback (too-near bound everywhere).
     garbage = jnp.full_like(base["tile_qmin"], 1e6)
-    adv = rp.closest_hit_raster(b, cam, w, h, interpret=True,
+    adv = rp.closest_hit_raster(b, cam, w, h,
                                 tile_qmin=garbage)
     np.testing.assert_array_equal(np.asarray(base["tri"]),
                                   np.asarray(adv["tri"]))

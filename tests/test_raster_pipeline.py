@@ -7,20 +7,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.render import post
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.gbuffer import render_gbuffer
-from d3d12renderer_tpu.render.ibl import (
+from d3d12renderer_jax.render import post
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.gbuffer import render_gbuffer
+from d3d12renderer_jax.render.ibl import (
     brdf_lut, eval_irradiance_sh9, irradiance_sh9,
 )
-from d3d12renderer_tpu.render.lights import (
+from d3d12renderer_jax.render.lights import (
     MAX_LIGHTS_PER_TILE, PointLights, cull_lights_tiled, make_point_lights,
 )
-from d3d12renderer_tpu.render.pipeline import (
+from d3d12renderer_jax.render.pipeline import (
     RendererSettings, initial_frame_state, render_frame,
     render_frame_with_shadows,
 )
-from d3d12renderer_tpu.render.shadows import (
+from d3d12renderer_jax.render.shadows import (
     ShadowCache, fit_cascades, render_sun_shadow_maps, sample_sun_shadow,
 )
 
@@ -90,7 +90,7 @@ def test_tiled_light_culling_matches_bruteforce(scene, cam, gb):
     assert tl.shape[-1] == MAX_LIGHTS_PER_TILE
     # Culling keeps at least every light that illuminates some tile pixel.
     vp = np.asarray(gb.view_pos)
-    import d3d12renderer_tpu.core.maths as m
+    import d3d12renderer_jax.core.maths as m
     lp = np.asarray(m.quat_rotate(
         m.quat_conj(cam.rotation)[None],
         jnp.asarray(pos) - cam.position))
@@ -134,7 +134,7 @@ def test_post_stack_functions():
 
 
 def test_gaussian_blur_matmul_matches_shift_chain():
-    """The MXU banded-matmul blur must match the shift-chain convolution
+    """The banded-matmul blur must match the shift-chain convolution
     (same edge clamping) to bf16 resolution, and exactly in f32."""
     key = jax.random.PRNGKey(3)
     img = jax.random.uniform(key, (160, 130, 3))
@@ -177,8 +177,7 @@ def test_full_frame_renders(scene, cam):
 
 
 def test_per_pass_dispatch_matches_fused(scene, cam):
-    """dispatch='per_pass' (each stage its own jit program — the workaround
-    for the TPU toolchain's whole-frame fusion-pass crash) must be
+    """dispatch='per_pass' (each stage its own jit program) must be
     numerically identical to the fused frame."""
     lights = make_point_lights(
         [[2.0, 1.5, 2.0]], [[20.0, 5.0, 5.0]], [6.0])
@@ -221,8 +220,8 @@ def test_ibl_sh_and_brdf_lut():
 
 
 def test_water_pass_composites(scene, cam):
-    from d3d12renderer_tpu.render.gbuffer import render_gbuffer
-    from d3d12renderer_tpu.render.water_pass import water_pass
+    from d3d12renderer_jax.render.gbuffer import render_gbuffer
+    from d3d12renderer_jax.render.water_pass import water_pass
 
     gb = render_gbuffer(scene, cam, W, H)
     color = jnp.full((H, W, 3), 0.5)
@@ -242,7 +241,7 @@ def test_water_pass_composites(scene, cam):
 
 @pytest.mark.slow
 def test_renderer_modes(scene, cam):
-    from d3d12renderer_tpu.render.pipeline import render_mode
+    from d3d12renderer_jax.render.pipeline import render_mode
 
     vis = np.asarray(render_mode(scene, cam, 32, 32,
                                  mode="visualize_cascades"))
@@ -257,7 +256,7 @@ def test_renderer_modes(scene, cam):
 
 @pytest.mark.slow
 def test_render_resources_defaults():
-    from d3d12renderer_tpu.render import resources as rr
+    from d3d12renderer_jax.render import resources as rr
 
     assert float(rr.default_white().min()) == 1.0
     assert float(rr.default_black().max()) == 0.0
@@ -271,7 +270,7 @@ def test_render_resources_defaults():
 
 
 def test_decals_modify_gbuffer(scene, cam, gb):
-    from d3d12renderer_tpu.render.decals import apply_decals, make_decals
+    from d3d12renderer_jax.render.decals import apply_decals, make_decals
 
     decals = make_decals(
         positions=[[0.0, 0.0, 0.0]],
@@ -291,10 +290,10 @@ def test_decals_modify_gbuffer(scene, cam, gb):
 
 
 def test_textured_albedo_sampling():
-    from d3d12renderer_tpu.render import bvh as bvh_mod
-    from d3d12renderer_tpu.render import mesh as mesh_mod
-    from d3d12renderer_tpu.render.pathtracer import Materials, sample_albedo
-    from d3d12renderer_tpu.render.resources import checker_texture
+    from d3d12renderer_jax.render import bvh as bvh_mod
+    from d3d12renderer_jax.render import mesh as mesh_mod
+    from d3d12renderer_jax.render.pathtracer import Materials, sample_albedo
+    from d3d12renderer_jax.render.resources import checker_texture
 
     atlas = jnp.stack([checker_texture(16, 4)])
     mats = Materials(
@@ -317,7 +316,7 @@ def test_moving_camera_motion_vectors(scene, cam):
     """G-buffer motion vectors for a MOVING camera (the flythrough path):
     zero when prev == current; predominantly horizontal and consistently
     signed for a pure horizontal dolly."""
-    from d3d12renderer_tpu.render.gbuffer import render_gbuffer
+    from d3d12renderer_jax.render.gbuffer import render_gbuffer
 
     gb0 = render_gbuffer(scene, cam, W, H, prev_camera=cam)
     hit = np.asarray(gb0.depth) < 1e9
@@ -325,7 +324,7 @@ def test_moving_camera_motion_vectors(scene, cam):
     m0 = np.asarray(gb0.motion)[hit]
     np.testing.assert_allclose(m0, 0.0, atol=1e-3)
 
-    import d3d12renderer_tpu.core.maths as m
+    import d3d12renderer_jax.core.maths as m
 
     right = m.quat_rotate(cam.rotation[None], jnp.array([[1.0, 0.0, 0.0]]))[0]
     moved = cam.replace(position=cam.position + 0.4 * right)

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.core import maths as m
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.raycast import (
+from d3d12renderer_jax.core import maths as m
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.raycast import (
     ray_cast,
     ray_vs_box,
     ray_vs_capsule,
@@ -141,7 +141,7 @@ def test_exact_ray_poke_hits_surface_body():
     """exact=True poke applies force/torque to the body whose SURFACE the ray
     hits — here the ray grazes past a big sphere's bounding radius but only
     actually strikes the box behind it."""
-    from d3d12renderer_tpu.physics.events import ray_poke
+    from d3d12renderer_jax.physics.events import ray_poke
 
     b = SceneBuilder()
     pole = b.add_body(position=(0.0, 1.0, 0.0))

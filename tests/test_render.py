@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.camera import look_at, generate_rays
-from d3d12renderer_tpu.render.pathtracer import (
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.camera import look_at, generate_rays
+from d3d12renderer_jax.render.pathtracer import (
     Materials, PathTracerSettings, Scene, default_sky, render, sky_radiance,
 )
 
@@ -92,31 +92,6 @@ def test_render_produces_plausible_image():
     assert img.std() > 0.01
 
 
-def test_bounce_ray_sorting_statistically_equivalent():
-    """sort_bounce_rays permutes rays between bounces (coherence for the
-    culled kernel) — a pure reordering, so the image statistics must match
-    the unsorted estimator and the permutation must land radiance back on
-    the right pixels (deterministic for a fixed key)."""
-    scene = make_scene()
-    cam = look_at(eye=(5, 3, 6), target=(0.5, 0.8, 0), aspect=1.0,
-                  v_fov=math.radians(50))
-    base = PathTracerSettings(recursion_depth=2)
-    f = jax.jit(lambda k, s: render(scene, cam, 32, 32, s, spp=16, key=k),
-                static_argnums=1)
-    img_off = np.asarray(f(jax.random.PRNGKey(1), base))
-    img_on = np.asarray(f(jax.random.PRNGKey(1),
-                          base.replace(sort_bounce_rays=True)))
-    img_on2 = np.asarray(f(jax.random.PRNGKey(1),
-                           base.replace(sort_bounce_rays=True)))
-    assert np.isfinite(img_on).all()
-    np.testing.assert_array_equal(img_on, img_on2)  # deterministic
-    # Same estimator up to which RNG slot each ray draws: means agree.
-    assert abs(img_on.mean() - img_off.mean()) < 0.12 * img_off.mean()
-    # Pixel-level structure is preserved (not scrambled by the un-permute).
-    corr = np.corrcoef(img_on.mean(-1).ravel(), img_off.mean(-1).ravel())[0, 1]
-    assert corr > 0.95
-
-
 def test_sky_sun_disc():
     sky = default_sky()
     d = sky.sun_direction[None, :]
@@ -137,15 +112,15 @@ def test_primitive_meshes_valid():
 
 
 def test_dense_path_matches_bvh_traversal():
-    """The MXU dense intersector and the skip-link traversal must agree."""
-    from d3d12renderer_tpu.render import bvh as bvh_mod
+    """The dense intersector and the skip-link traversal must agree."""
+    from d3d12renderer_jax.render import bvh as bvh_mod
 
     ground = mesh_mod.quad(half=5.0)
     sphere = mesh_mod.ico_sphere(1.0, 2).transformed(translate=(0, 1.0, 0))
     meshes = [(ground, 0), (sphere, 1)]
-    dense_bvh = bvh_mod.build_bvh(meshes, use_dense=True)
-    loop_bvh = bvh_mod.build_bvh(meshes, use_dense=False)
-    assert dense_bvh.dense is not None and loop_bvh.dense is None
+    loop_bvh = bvh_mod.build_bvh(meshes)
+    dense_bvh = loop_bvh.replace(dense=bvh_mod.build_dense(loop_bvh))
+    assert loop_bvh.dense is None
 
     rng = np.random.default_rng(1)
     o = np.array([[0.0, 3.0, 5.0]]).repeat(128, 0).astype(np.float32)
@@ -169,9 +144,9 @@ def test_native_bvh_builder_matches_numpy(monkeypatch):
     links, and the same triangle SET per leaf (within-leaf order may differ
     — nth_element vs argsort tie handling — which cannot change any ray
     result)."""
-    from d3d12renderer_tpu.assets.native import native_available
-    from d3d12renderer_tpu.render import bvh as bvh_mod
-    from d3d12renderer_tpu.render import mesh as mesh_mod
+    from d3d12renderer_jax.assets.native import native_available
+    from d3d12renderer_jax.render import bvh as bvh_mod
+    from d3d12renderer_jax.render import mesh as mesh_mod
 
     if not native_available():
         pytest.skip("no native toolchain")
@@ -179,10 +154,10 @@ def test_native_bvh_builder_matches_numpy(monkeypatch):
               (mesh_mod.box((0.4, 0.3, 0.5)).transformed(
                   translate=(1.5, 0.4, 0.0)), 1),
               (mesh_mod.quad(6.0), 2)]
-    monkeypatch.setenv("D3D12TPU_NATIVE_BVH", "1")
-    bn = bvh_mod.build_bvh(meshes, use_dense=False, cache=False)
-    monkeypatch.setenv("D3D12TPU_NATIVE_BVH", "0")
-    bp = bvh_mod.build_bvh(meshes, use_dense=False, cache=False)
+    monkeypatch.setenv("D3D12_NATIVE_BVH", "1")
+    bn = bvh_mod.build_bvh(meshes, cache=False)
+    monkeypatch.setenv("D3D12_NATIVE_BVH", "0")
+    bp = bvh_mod.build_bvh(meshes, cache=False)
 
     for f in ("node_min", "node_max", "node_first", "node_count",
               "node_miss"):
@@ -202,10 +177,10 @@ def test_bvh_content_hash_cache(tmp_path, monkeypatch):
     """Disk-cached BVH (the BLAS-cache analogue of the reference's
     .cache.bin derived data) reproduces every array bit-exactly and
     invalidates when geometry changes."""
-    from d3d12renderer_tpu.render import bvh as bvh_mod
-    from d3d12renderer_tpu.render import mesh as mesh_mod
+    from d3d12renderer_jax.render import bvh as bvh_mod
+    from d3d12renderer_jax.render import mesh as mesh_mod
 
-    monkeypatch.setenv("D3D12TPU_BVH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("D3D12_BVH_CACHE_DIR", str(tmp_path))
     meshes = [(mesh_mod.uv_sphere(0.7, 12, 16), 0),
               (mesh_mod.box((0.4, 0.4, 0.4)).transformed(
                   translate=(1.5, 0.4, 0.0)), 1)]
@@ -216,11 +191,7 @@ def test_bvh_content_hash_cache(tmp_path, monkeypatch):
     for f in bvh_mod._BVH_FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(b1, f)),
                                       np.asarray(getattr(b2, f)))
-    assert (b2.dense is None) == (b1.dense is None)
-    if b1.dense is not None:
-        for f in bvh_mod._DENSE_FIELDS:
-            np.testing.assert_array_equal(np.asarray(getattr(b1.dense, f)),
-                                          np.asarray(getattr(b2.dense, f)))
+    assert b1.dense is None and b2.dense is None
 
     # Different geometry -> different key (no false hit).
     meshes2 = [(mesh_mod.uv_sphere(0.71, 12, 16), 0), meshes[1]]
@@ -233,7 +204,7 @@ def test_native_bvh_builder_edge_cases():
     """Structural invariants of the native builder on degenerate inputs:
     single triangle, all-identical centroids (total ties), collinear
     centroids, leaf_size=1."""
-    from d3d12renderer_tpu.assets.native import (
+    from d3d12renderer_jax.assets.native import (
         bvh_build_arrays, native_available,
     )
 

@@ -6,10 +6,10 @@ import math
 import jax
 import numpy as np
 
-from d3d12renderer_tpu.scene import components as C
-from d3d12renderer_tpu.scene.scene import Scene
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.scene import components as C
+from d3d12renderer_jax.scene.scene import Scene
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 
 def build_demo_scene() -> Scene:
@@ -79,8 +79,8 @@ def test_scene_clone_is_independent():
 def test_render_from_scene():
     s = build_demo_scene()
     rscene = s.build_render_scene()
-    from d3d12renderer_tpu.render.camera import look_at
-    from d3d12renderer_tpu.render.pathtracer import PathTracerSettings, render
+    from d3d12renderer_jax.render.camera import look_at
+    from d3d12renderer_jax.render.pathtracer import PathTracerSettings, render
 
     cam = look_at(eye=(4, 3, 4), target=(0, 1, 0), aspect=1.0,
                   v_fov=math.radians(50))

@@ -11,19 +11,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.render import bvh as bvh_mod
-from d3d12renderer_tpu.render import mesh as mesh_mod
-from d3d12renderer_tpu.render.camera import look_at
-from d3d12renderer_tpu.render.lights import (
+from d3d12renderer_jax.render import bvh as bvh_mod
+from d3d12renderer_jax.render import mesh as mesh_mod
+from d3d12renderer_jax.render.camera import look_at
+from d3d12renderer_jax.render.lights import (
     make_point_lights, SpotLights,
 )
-from d3d12renderer_tpu.render.pathtracer import (
+from d3d12renderer_jax.render.pathtracer import (
     Materials, Scene, default_sky,
 )
-from d3d12renderer_tpu.render.pipeline import (
+from d3d12renderer_jax.render.pipeline import (
     RendererSettings, render_frame,
 )
-from d3d12renderer_tpu.render.shadows import (
+from d3d12renderer_jax.render.shadows import (
     ShadowAtlas, render_point_shadow_map, render_spot_shadow_map,
     sample_point_shadow, sample_spot_shadow,
 )

@@ -6,8 +6,8 @@ src/physics/physics.cpp joint adds without collision exclusion).
 import numpy as np
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.render.pathtracer import (
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.render.pathtracer import (
     default_sky, sample_cubemap, sky_radiance,
 )
 

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.render import post
+from d3d12renderer_jax.render import post
 
 
 def test_min_depth_pyramid_levels_and_values():

@@ -5,11 +5,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.step import (
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.step import (
     physics_step, physics_step_interpolated,
 )
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 
 def _scene():

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
-from d3d12renderer_tpu.terrain.heightmap import (
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
+from d3d12renderer_jax.terrain.heightmap import (
     generate_heightmap, heightmap_mesh, sample_height_bilinear,
 )
 

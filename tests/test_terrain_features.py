@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from d3d12renderer_tpu.terrain.grass import (
+from d3d12renderer_jax.terrain.grass import (
     blade_lod, blade_triangles, generate_grass_blades,
 )
-from d3d12renderer_tpu.terrain.heightmap import generate_heightmap
-from d3d12renderer_tpu.terrain.placement import generate_placement_points
-from d3d12renderer_tpu.terrain.tree import weld_vertices, wind_bend
-from d3d12renderer_tpu.terrain.water import water_color, water_normal
+from d3d12renderer_jax.terrain.heightmap import generate_heightmap
+from d3d12renderer_jax.terrain.placement import generate_placement_points
+from d3d12renderer_jax.terrain.tree import weld_vertices, wind_bend
+from d3d12renderer_jax.terrain.water import water_color, water_normal
 
 
 def test_placement_respects_slope_and_density():
@@ -81,8 +81,8 @@ def test_grass_chunk_culling_and_lod():
     (reference: grass chunk culling + LOD, src/terrain/grass.h:21-39)."""
     import math
 
-    from d3d12renderer_tpu.render.camera import look_at
-    from d3d12renderer_tpu.terrain.grass import (
+    from d3d12renderer_jax.render.camera import look_at
+    from d3d12renderer_jax.terrain.grass import (
         LOD0_SEGMENTS, LOD1_SEGMENTS, grass_lod_triangles,
     )
 
@@ -138,8 +138,8 @@ def test_multi_layer_placement_and_instancing():
     """Layered placement: exclusive layer membership, per-layer masks,
     weighted mesh variants, host instancing (reference placement layers,
     src/terrain/proc_placement.h:13-36)."""
-    from d3d12renderer_tpu.render import mesh as mesh_mod
-    from d3d12renderer_tpu.terrain.placement import (
+    from d3d12renderer_jax.render import mesh as mesh_mod
+    from d3d12renderer_jax.terrain.placement import (
         generate_placement_layers, instantiate_placement,
     )
 

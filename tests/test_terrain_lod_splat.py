@@ -6,7 +6,7 @@ collapse, src/terrain/terrain.h:31 splatting).
 import numpy as np
 import jax.numpy as jnp
 
-from d3d12renderer_tpu.terrain.heightmap import (
+from d3d12renderer_jax.terrain.heightmap import (
     generate_heightmap, shade_splat, splat_weights, terrain_lod_chunks,
 )
 

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from d3d12renderer_tpu.models.vehicle import build_vehicle, drive_overrides
-from d3d12renderer_tpu.physics.builder import SceneBuilder
-from d3d12renderer_tpu.physics.step import physics_step
-from d3d12renderer_tpu.physics.types import PhysicsSettings
+from d3d12renderer_jax.models.vehicle import build_vehicle, drive_overrides
+from d3d12renderer_jax.physics.builder import SceneBuilder
+from d3d12renderer_jax.physics.step import physics_step
+from d3d12renderer_jax.physics.types import PhysicsSettings
 
 DT = 1.0 / 60.0
 # Gear meshing puts one body in ~100 candidate contact rows; the mass-splitting

@@ -7,7 +7,7 @@ compilation stats, and optionally renders a view to PNG.
 
 Usage:
   python tools/inspect_scene.py scene.yaml [--render out.png] [--size 256]
-      [--eye 6,4,8] [--target 0,1,0] [--platform cpu]
+      [--eye 6,4,8] [--target 0,1,0]
 """
 
 import argparse
@@ -26,18 +26,14 @@ parser.add_argument("--size", type=int, default=256)
 parser.add_argument("--spp", type=int, default=8)
 parser.add_argument("--eye", default="6,4,8")
 parser.add_argument("--target", default="0,1,0")
-parser.add_argument("--platform", default="cpu")
 args = parser.parse_args()
 
 import jax
-
-jax.config.update("jax_platforms", args.platform)
-
 import math
 
 import numpy as np
 
-from d3d12renderer_tpu.scene.scene import Scene
+from d3d12renderer_jax.scene.scene import Scene
 
 
 def vec(s):
@@ -75,8 +71,8 @@ for t in arch.joints:
 if args.render:
     from PIL import Image
 
-    from d3d12renderer_tpu.render.camera import look_at
-    from d3d12renderer_tpu.render.pathtracer import (
+    from d3d12renderer_jax.render.camera import look_at
+    from d3d12renderer_jax.render.pathtracer import (
         PathTracerSettings, render, to_srgb_u8,
     )
 
